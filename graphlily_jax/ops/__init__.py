@@ -1,0 +1,8 @@
+from .vector import (SparseVector, sparse_from_entries, sparse_to_dense,
+                     dense_to_sparse, sparse_to_reference_packed,
+                     reference_packed_to_sparse)
+from .reference import (COODevice, coo_from_csr, coo_from_csc, coo_product,
+                        spmv_coo, spmspv_coo, ewise_add_scalar,
+                        assign_vector_dense,
+                        assign_vector_sparse_no_new_frontier,
+                        assign_vector_sparse_new_frontier)

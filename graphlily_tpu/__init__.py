@@ -1,24 +1,19 @@
-"""graphlily_tpu: a TPU-native GraphBLAS framework.
+"""The package's former name, kept so that existing imports keep working.
 
-A from-scratch rebuild of the capabilities of cornell-zhang/GraphLily
-(ICCAD'21, FPGA overlay for graph linear algebra) designed for TPUs:
-semiring-parameterized masked SpMV/SpMSpV as Pallas kernels over chunked
-VMEM-tiled layouts, the apply/assign/eWiseAdd operator set, a functional
-module layer, and BFS / SSSP / PageRank apps whose iteration loops run
-entirely on device inside `lax.while_loop`.
-
-Layer map (counterpart of SURVEY.md section 1):
-  ops/      device kernels + XLA fallbacks   (ref: graphlily/hw/*)
-  io/       containers, loaders, formatter   (ref: graphlily/io/*)
-  module/   operation middleware             (ref: graphlily/module/*)
-  apps/     BFS, SSSP, PageRank              (ref: graphlily/app/*)
-  parallel/ multi-chip sharding (TPU-only extension; the reference is
-            single-FPGA)
-  utils/    profiling, load-balance analysis (ref: benchmark/analyze_*.py)
+Importing it, or any of its submodules, gives the `graphlily_jax` module
+itself; new code imports `graphlily_jax`.
 """
+import importlib
+import pkgutil
+import sys
+import warnings
 
-from .config import EngineConfig, DEFAULT_CONFIG
-from .semiring import (ArithmeticSemiring, LogicalSemiring, TropicalSemiring,
-                       Semiring, MaskType, OpType, SEMIRINGS, FLOAT_INF)
+import graphlily_jax
 
-__version__ = "0.1.0"
+warnings.warn(f"{__name__} is an alias of graphlily_jax; import graphlily_jax",
+              DeprecationWarning, stacklevel=2)
+for _info in pkgutil.walk_packages(graphlily_jax.__path__, "graphlily_jax."):
+    importlib.import_module(_info.name)
+for _name, _module in list(sys.modules.items()):
+    if _name.split(".")[0] == "graphlily_jax":
+        sys.modules[__name__ + _name[len("graphlily_jax"):]] = _module

@@ -1,23 +1,39 @@
 """App-level integration tests — counterpart of the reference's
 tests/test_app.cpp: BFS pull/push/pull_push, SSSP pull/push/pull_push,
-PageRank pull, each against the app's CPU reference on a uniform random graph
-(the reference uses uniform_10K_10; scaled down for interpret-mode speed)."""
+PageRank pull, each against the app's CPU reference (the reference uses
+uniform_10K_10; scaled down here). Graph fixtures: uniform random, a
+power-law RMAT, and a graph with isolated vertices, none with dimensions
+that are multiples of 1024."""
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.slow  # interpret-mode engine tests (see pytest.ini)
+from graphlily_jax import EngineConfig
+from graphlily_jax.apps import BFS, SSSP, PageRank
+from graphlily_jax.io import uniform_csr, rmat_csr, csr_from_coo
 
-from graphlily_tpu import EngineConfig
-from graphlily_tpu.apps import BFS, SSSP, PageRank
-from graphlily_tpu.io import uniform_csr
-
-CFG = EngineConfig(interpret=True)
+CFG = EngineConfig()
 NUM_ITER = 6
 
 
-@pytest.fixture(scope="module")
-def graph():
-    return uniform_csr(1200, 1200, 10, seed=42)
+def _isolated_graph():
+    """2500 vertices; 2000..2499 have no edges in or out."""
+    rng = np.random.default_rng(7)
+    rows = np.repeat(np.arange(2000), 5)
+    cols = rng.integers(0, 2000, rows.size)
+    return csr_from_coo(rows, cols, rng.random(rows.size).astype(np.float32),
+                        2500, 2500)
+
+
+GRAPHS = {
+    "uniform": lambda: uniform_csr(1200, 1200, 10, seed=42),
+    "rmat": lambda: rmat_csr(3000, 30000, seed=43),
+    "isolated": _isolated_graph,
+}
+
+
+@pytest.fixture(scope="module", params=list(GRAPHS))
+def graph(request):
+    return GRAPHS[request.param]()
 
 
 @pytest.fixture(scope="module")
@@ -28,33 +44,6 @@ def bfs_app(graph):
     return app
 
 
-def test_bfs_pull(bfs_app):
-    got = bfs_app.pull(0, NUM_ITER)
-    want = bfs_app.compute_reference_results(0, NUM_ITER)
-    np.testing.assert_allclose(got, want, atol=1e-4)
-
-
-def test_bfs_push(bfs_app):
-    got = bfs_app.push(0, NUM_ITER)
-    want = bfs_app.compute_reference_results(0, NUM_ITER)
-    np.testing.assert_allclose(got, want, atol=1e-4)
-
-
-def test_bfs_pull_push(bfs_app):
-    got = bfs_app.pull_push(0, NUM_ITER, threshold=0.1)
-    want = bfs_app.compute_reference_results(0, NUM_ITER)
-    np.testing.assert_allclose(got, want, atol=1e-4)
-
-
-def test_bfs_chained_matches_fused(bfs_app):
-    fused = bfs_app.pull(3, 4)
-    chained = bfs_app.pull(3, 4, chained=True)
-    np.testing.assert_allclose(fused, chained, atol=1e-4)
-    fused_p = bfs_app.push(3, 4)
-    chained_p = bfs_app.push(3, 4, chained=True)
-    np.testing.assert_allclose(fused_p, chained_p, atol=1e-4)
-
-
 @pytest.fixture(scope="module")
 def sssp_app(graph):
     app = SSSP(CFG)
@@ -63,22 +52,40 @@ def sssp_app(graph):
     return app
 
 
+def test_bfs_pull(bfs_app):
+    got = bfs_app.pull(0, NUM_ITER)
+    want = bfs_app.compute_reference_results(0, NUM_ITER)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bfs_push(bfs_app):
+    got = bfs_app.push(0, NUM_ITER)
+    want = bfs_app.compute_reference_results(0, NUM_ITER)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bfs_pull_push(bfs_app):
+    got = bfs_app.pull_push(0, NUM_ITER, threshold=0.1)
+    want = bfs_app.compute_reference_results(0, NUM_ITER)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_sssp_pull(sssp_app):
     got = sssp_app.pull(0, NUM_ITER)
     want = sssp_app.compute_reference_results(0, NUM_ITER)
-    np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def test_sssp_push(sssp_app):
     got = sssp_app.push(0, NUM_ITER)
     want = sssp_app.compute_reference_results(0, NUM_ITER)
-    np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def test_sssp_pull_push(sssp_app):
     got = sssp_app.pull_push(0, NUM_ITER, threshold=0.1)
     want = sssp_app.compute_reference_results(0, NUM_ITER)
-    np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def test_pagerank_pull(graph):
@@ -90,11 +97,19 @@ def test_pagerank_pull(graph):
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-6)
 
 
+def test_bfs_chained_matches_fused(bfs_app):
+    fused = bfs_app.pull(3, 4)
+    chained = bfs_app.pull(3, 4, chained=True)
+    np.testing.assert_allclose(fused, chained, atol=1e-4)
+    fused_p = bfs_app.push(3, 4)
+    chained_p = bfs_app.push(3, 4, chained=True)
+    np.testing.assert_allclose(fused_p, chained_p, atol=1e-4)
+
+
 def test_apps_with_degree_sort_relabeling(graph):
     """config.sort_rows_by_degree relabels vertices internally; results must
     come back in the original vertex numbering."""
-    from graphlily_tpu import EngineConfig
-    cfg = EngineConfig(interpret=True, sort_rows_by_degree=True)
+    cfg = EngineConfig(sort_rows_by_degree=True)
     app = BFS(cfg)
     app.load_and_format_matrix(graph)
     got = app.pull_push(5, 5, threshold=0.1)
@@ -112,26 +127,6 @@ def test_apps_with_degree_sort_relabeling(graph):
     pr2.load_and_format_matrix(graph, damping=0.9)
     np.testing.assert_allclose(got, pr2.compute_reference_results(0.9, 5),
                                rtol=2e-3, atol=1e-7)
-
-
-def test_apps_share_scalable_engine(graph):
-    """BFS/SSSP pass reuse_from= so the SpMSpV module shares the SpMV
-    module's scalable-engine object (csc2csr(csr2csc(A)) == A ⇒ identical
-    layout; one device copy per app instead of two — the round-2 full-scale
-    SSSP OOM). Both pull and push phases must still match the oracle."""
-    cfg = EngineConfig(interpret=True, engine="router")
-    app = BFS(cfg)
-    app.load_and_format_matrix(graph)
-    assert app.SpMSpV_._pallas is app.SpMV_._pallas
-    got = app.pull_push(0, NUM_ITER, threshold=0.1)
-    np.testing.assert_allclose(
-        got, app.compute_reference_results(0, NUM_ITER), atol=1e-4)
-    s = SSSP(cfg)
-    s.load_and_format_matrix(graph)
-    assert s.SpMSpV_._pallas is s.SpMV_._pallas
-    got = s.pull_push(0, NUM_ITER, threshold=0.1)
-    np.testing.assert_allclose(
-        got, s.compute_reference_results(0, NUM_ITER), atol=1e-4)
 
 
 def test_bfs_time_breakdown_matches_fused(graph):
@@ -163,7 +158,7 @@ def test_pagerank_time_breakdown_matches_pull(graph):
 
 
 def test_sssp_time_breakdown_matches_fused(graph):
-    from graphlily_tpu.apps import SSSP
+    from graphlily_jax.apps import SSSP
     app = SSSP(CFG)
     app.load_and_format_matrix(graph)
     bd = app.pull_push_time_breakdown(3, 5, threshold=0.05)

@@ -1,29 +1,22 @@
-"""Big-scale CPU regression: a ~100K-vertex, multi-region, multi-tile
-planar layout through the module + app layers in interpret mode.
-
-The class of bug this exists to catch kept surfacing only on the TPU at
-full scale (round 2/3: xperm sub-tile padding, prewarm deal-key mismatch,
-flush-slot skew) because the unit fixtures top out ~4K vertices — a single
-region, a handful of col tiles. This mirrors the reference's sw_emu module
-run on real googleplus (tests/test_module_spmv_spmspv.cpp:144-178) at a
-size that still finishes in interpret mode: ~98K rows (6 regions at the
-chooser's rr=16384), 96 column tiles, ~800K nnz, degree-sorted, deal="free".
+"""Big-scale CPU regression: a ~100K-vertex power-law graph through the
+module + app layers, degree-sorted, with dimensions that are not multiples
+of 1024. Mirrors the reference's sw_emu module run on real googleplus
+(tests/test_module_spmv_spmspv.cpp:144-178) at a size the CPU finishes
+quickly: ~98K rows, ~800K nnz.
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from graphlily_tpu import (ArithmeticSemiring, LogicalSemiring, MaskType,
+from graphlily_jax import (ArithmeticSemiring, LogicalSemiring, MaskType,
                            EngineConfig)
-from graphlily_tpu.io import rmat_csr, csr2csc
-from graphlily_tpu.module import SpMVModule, SpMSpVModule
-from graphlily_tpu.ops import sparse_from_entries
+from graphlily_jax.io import rmat_csr, csr2csc
+from graphlily_jax.module import SpMVModule, SpMSpVModule
+from graphlily_jax.ops import sparse_from_entries
 
-CFG = EngineConfig(interpret=True, sort_rows_by_degree=True,
-                   engine="router")   # force the scalable planar engine
-                                      # (auto picks chunked at ~1M nnz)
+CFG = EngineConfig(sort_rows_by_degree=True)
 N = 98_000
-NNZ = 800_000   # epg < 200 so the router flavor resolves to planar
+NNZ = 800_000
 
 
 @pytest.fixture(scope="module")
@@ -31,19 +24,14 @@ def big_graph():
     return rmat_csr(N, NNZ, seed=11)
 
 
-@pytest.mark.slow
-def test_fullscale_planar_spmv_module(big_graph, rng):
-    """Multi-region planar SpMV through SpMVModule (engine auto-select must
-    pick the planar flavor at this sparsity) vs the f64 oracle."""
-    from graphlily_tpu.module.spmv_module import resolve_router_flavor
+def test_fullscale_spmv_module(big_graph, rng):
+    """SpMV through SpMVModule at ~100K vertices vs the f64 oracle."""
     mod = SpMVModule(CFG)
     mod.set_semiring(ArithmeticSemiring)
     mod.set_mask_type(MaskType.NO_MASK)
     mod.load_and_format_matrix(big_graph)
     n = mod.get_num_rows()
-    lay = mod._pallas.layout
-    assert lay.num_regions >= 6, "fixture must span many regions"
-    assert lay.num_col_tiles >= 64, "fixture must span many col tiles"
+    assert n == 98_304
     x = rng.random(n).astype(np.float32)
     x[rng.random(n) < 0.5] = 0.0
     mod.send_vector_host_to_device(x)
@@ -54,12 +42,11 @@ def test_fullscale_planar_spmv_module(big_graph, rng):
     assert float(np.max(np.abs(got - want) / scale)) < 3e-2
 
 
-@pytest.mark.slow
 def test_fullscale_bfs_app(big_graph):
     """BFS pull_push at ~100K vertices: the fused while_loop over the
-    planar + shared-engine SpMSpV path vs the host oracle (the reference's
-    googleplus sw_emu app check)."""
-    from graphlily_tpu.apps import BFS
+    SpMV + SpMSpV modules vs the host oracle (the reference's googleplus
+    sw_emu app check)."""
+    from graphlily_jax.apps import BFS
     g = big_graph.copy()
     g.adj_data = np.ones_like(g.adj_data)
     app = BFS(CFG)
@@ -69,21 +56,18 @@ def test_fullscale_bfs_app(big_graph):
     np.testing.assert_allclose(np.asarray(got)[:len(want)], want, atol=1e-5)
 
 
-@pytest.mark.slow
-def test_fullscale_spmspv_shared_engine(big_graph, rng):
-    """SpMSpV at ~100K vertices through the engine-sharing path
-    (reuse_from halves app HBM — apps/sssp.py): page-predicated planar
-    product on a sparse frontier vs the active-columns oracle."""
+def test_fullscale_spmspv_module(big_graph, rng):
+    """SpMSpV at ~100K vertices on a sparse frontier vs the
+    active-columns oracle."""
     mod_v = SpMVModule(CFG)
     mod_v.set_semiring(ArithmeticSemiring)
-    mod_v.set_mask_type(MaskType.NO_MASK)
     mod_v.load_and_format_matrix(big_graph)
 
-    csc = csr2csc(mod_v.csr_matrix_)   # twin of the RELABELED matrix
+    csc = csr2csc(mod_v.csr_matrix_)
     mod = SpMSpVModule(CFG)
     mod.set_semiring(ArithmeticSemiring)
     mod.set_mask_type(MaskType.NO_MASK)
-    mod.load_and_format_matrix(csc, reuse_from=mod_v)
+    mod.load_and_format_matrix(csc)
     n = mod.num_cols_
     nnz_vec = 500
     idx = np.sort(rng.choice(n, size=nnz_vec, replace=False))

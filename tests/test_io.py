@@ -1,20 +1,19 @@
 """IO layer tests — counterpart of the reference's tests/test_io.cpp:
 loader round-trips, csr<->csc, dimension rounding, outdegree normalization,
-row reordering, SSSP self-edge preprocessing, and the chunk packer invariants.
+row reordering, SSSP self-edge preprocessing, and the device COO format.
 """
 import numpy as np
 import pytest
 
-from graphlily_tpu.io import (CSRMatrix, csr_from_coo, csr2csc, csc2csr,
+from graphlily_jax.io import (CSRMatrix, csr_from_coo, csr2csc, csc2csr,
                               load_csr_matrix_from_float_npz,
                               save_csr_matrix_to_float_npz,
                               util_round_csr_matrix_dim,
                               util_normalize_csr_matrix_by_outdegree,
                               util_reorder_rows_ascending_nnz,
                               add_self_edges_for_sssp,
-                              pack_csr_chunks, uniform_csr, dense_csr,
-                              conflict_csr, rmat_csr)
-from graphlily_tpu.config import EngineConfig
+                              uniform_csr, dense_csr, conflict_csr, rmat_csr)
+from graphlily_jax.ops import coo_from_csr, coo_from_csc
 
 
 def small_fixture():
@@ -134,33 +133,27 @@ def test_sssp_self_edges():
     (conflict_csr, dict(num_rows=500, num_cols=1500)),
     (rmat_csr, dict(num_rows=2000, nnz=30000, seed=2)),
 ])
-def test_pack_csr_chunks_invariants(maker, kw):
-    """The chunk layout must be a lossless, constraint-respecting encoding."""
+def test_coo_device_format_lossless(maker, kw):
+    """The device COO of both the CSR and the CSC twin is a lossless
+    encoding; padding entries point at row num_rows with value 0."""
     csr = maker(**kw)
-    cfg = EngineConfig()
-    lay = pack_csr_chunks(csr, cfg)
-    assert lay.num_rows % 1024 == 0 and lay.num_cols % 1024 == 0
-    assert lay.nnz == csr.nnz
-    # decode chunks -> dense equals original (padding adds zeros); the x-bucket
-    # is implied by the sublane (q == s for C=1024)
-    nct = lay.num_col_tiles
-    code = lay.code.astype(np.int64)
-    base_r = (code // nct) * 128              # (NC,)
-    base_c = (code % nct) * 1024
-    qimp = np.arange(8, dtype=np.int64)[None, :, None]
-    all_rows = (base_r[:, None, None] + lay.rows.astype(np.int64)).ravel()
-    all_cols = (base_c[:, None, None] + qimp * 128
-                + lay.r.astype(np.int64)).ravel()
-    all_vals = lay.vals.ravel().astype(np.float64)
-    dense = np.zeros((lay.num_rows, lay.num_cols), np.float64)
-    np.add.at(dense, (all_rows, all_cols), all_vals)
-    np.testing.assert_allclose(dense[:csr.num_rows, :csr.num_cols],
-                               csr.todense(), rtol=1e-6)
+    for coo in (coo_from_csr(csr), coo_from_csc(csr2csc(csr))):
+        assert (coo.num_rows, coo.num_cols, coo.nnz) == (
+            csr.num_rows, csr.num_cols, csr.nnz)
+        rows, cols = np.asarray(coo.rows), np.asarray(coo.cols)
+        vals = np.asarray(coo.vals, np.float64)
+        assert len(rows) % 8 == 0
+        assert (rows[coo.nnz:] == csr.num_rows).all()
+        assert (vals[coo.nnz:] == 0).all()
+        dense = np.zeros((csr.num_rows + 1, csr.num_cols), np.float64)
+        np.add.at(dense, (rows, cols), vals)
+        np.testing.assert_allclose(dense[:csr.num_rows], csr.todense(),
+                                   rtol=1e-6)
 
 
-def test_pack_chunks_code_sorted():
-    """Chunks must be grouped by window (out-block revisit correctness)."""
+def test_coo_from_csr_rows_sorted():
+    """spmv_coo tells the segment reduce its rows are sorted: CSR order
+    must hold, padding included."""
     csr = uniform_csr(2000, 2000, 5, seed=4)
-    lay = pack_csr_chunks(csr)
-    wgrp = lay.code // (lay.num_col_tiles * 8)
-    assert (np.diff(wgrp) >= 0).all()
+    rows = np.asarray(coo_from_csr(csr).rows)
+    assert (np.diff(rows) >= 0).all()

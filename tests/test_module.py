@@ -5,31 +5,29 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from graphlily_tpu import (ArithmeticSemiring, LogicalSemiring,
+from graphlily_jax import (ArithmeticSemiring, LogicalSemiring,
                            TropicalSemiring, MaskType, EngineConfig)
-from graphlily_tpu.io import uniform_csr, csr2csc
-from graphlily_tpu.module import (SpMVModule, SpMSpVModule, eWiseAddModule,
+from graphlily_jax.io import uniform_csr, csr2csc
+from graphlily_jax.module import (SpMVModule, SpMSpVModule, eWiseAddModule,
                                   AssignVectorDenseModule,
                                   AssignVectorSparseModule, DeviceBuffer)
-from graphlily_tpu.ops import sparse_from_entries, sparse_to_dense
+from graphlily_jax.ops import sparse_from_entries, sparse_to_dense
 
 SEMIRINGS = [ArithmeticSemiring, LogicalSemiring, TropicalSemiring]
-CFG = EngineConfig(interpret=True)
+MASKS = [MaskType.NO_MASK, MaskType.WRITE_TO_ZERO, MaskType.WRITE_TO_ONE]
+CFG = EngineConfig()
 
 
 @pytest.mark.parametrize("semiring", SEMIRINGS, ids=lambda s: s.name)
-@pytest.mark.parametrize("mask_type",
-                         [MaskType.NO_MASK, MaskType.WRITE_TO_ZERO],
-                         ids=lambda m: m.name)
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_spmv_module(semiring, mask_type, engine, rng):
-    cfg = EngineConfig(engine=engine, interpret=True)
+@pytest.mark.parametrize("mask_type", MASKS, ids=lambda m: m.name)
+def test_spmv_module(semiring, mask_type, rng):
     csr = uniform_csr(500, 500, 5, seed=31)
-    mod = SpMVModule(cfg)
+    mod = SpMVModule(CFG)
     mod.set_semiring(semiring)
     mod.set_mask_type(mask_type)
     mod.load_and_format_matrix(csr)
     n = mod.get_num_rows()
+    assert n == 1024 and mod.get_num_cols() == 1024   # rounded dims
     x = rng.random(n).astype(np.float32)
     x[rng.random(n) < 0.4] = semiring.zero
     mask = (rng.random(n) < 0.5).astype(np.float32)
@@ -44,9 +42,7 @@ def test_spmv_module(semiring, mask_type, engine, rng):
 
 
 @pytest.mark.parametrize("semiring", SEMIRINGS, ids=lambda s: s.name)
-@pytest.mark.parametrize("mask_type",
-                         [MaskType.NO_MASK, MaskType.WRITE_TO_ONE],
-                         ids=lambda m: m.name)
+@pytest.mark.parametrize("mask_type", MASKS, ids=lambda m: m.name)
 def test_spmspv_module(semiring, mask_type, rng):
     csr = uniform_csr(300, 300, 4, seed=32)
     csc = csr2csc(csr)
@@ -66,6 +62,24 @@ def test_spmspv_module(semiring, mask_type, rng):
     want = mod.compute_reference_results((idx, vals), mask)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     assert mod.get_results_nnz() == int((want != semiring.zero).sum())
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS, ids=lambda s: s.name)
+def test_spmspv_apply_dense_matches_sparse_api(semiring, rng):
+    """The dense frontier goes straight into the gather: apply_dense on
+    the scattered frontier equals the sparse API's dense result and its
+    on-device nnz equals the sparse result's."""
+    csc = csr2csc(uniform_csr(700, 900, 3, seed=33))
+    mod = SpMSpVModule(CFG)
+    mod.set_semiring(semiring)
+    mod.load_and_format_matrix(csc)
+    idx = np.sort(rng.choice(900, size=50, replace=False))
+    sv = sparse_from_entries(idx, rng.random(50) + 0.5, mod.capacity)
+    out_sv, want = mod.apply(sv)
+    x = sparse_to_dense(sv, 900, semiring.zero)
+    got, nnz = mod.apply_dense(x, state=mod.device_state())
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert int(nnz) == int(out_sv.nnz)
 
 
 def test_buffer_binding_chain(rng):
@@ -116,82 +130,3 @@ def test_assign_sparse_module_modes(rng):
     np.testing.assert_allclose(got2, want2)
     assert int(nf.nnz) == len(nf_idx)
     np.testing.assert_array_equal(np.asarray(nf.indices[:int(nf.nnz)]), nf_idx)
-
-
-def test_resolve_router_flavor_thresholds():
-    """Pin the epg=200 roll-vs-planar boundary (VERDICT r4 weak #6): a
-    dense-ish graph must pick roll, a hypersparse one planar, and the
-    decision must match the documented run-length formula on both sides."""
-    from graphlily_tpu.module.spmv_module import resolve_router_flavor
-    from graphlily_tpu.io import rmat_csr, uniform_csr
-    from graphlily_tpu.io.router_format import choose_region_rows
-
-    def epg(csr):
-        nrows = ((csr.num_rows + 1023) // 1024) * 1024
-        ncols = ((csr.num_cols + 1023) // 1024) * 1024
-        r = choose_region_rows(nrows, ncols, csr.nnz)
-        return csr.nnz * r / max((ncols // 128) * nrows, 1)
-
-    dense = uniform_csr(num_rows=2048, num_cols=2048, degree=64, seed=1)
-    assert epg(dense) >= 200
-    assert resolve_router_flavor(dense) == "roll"
-
-    sparse = uniform_csr(num_rows=65536, num_cols=65536, degree=2,
-                         seed=2)
-    assert epg(sparse) < 200
-    assert resolve_router_flavor(sparse) == "planar"
-
-
-def test_spmv_auto_engine_ladder():
-    """Pin the auto capability ladder (nnz<2M + <=700K rows + <=2GB est ->
-    chunked; else router flavor; tropical beyond-chunked -> the scalable
-    tropical engine). A silent flip of any cap flips an isinstance here."""
-    from graphlily_tpu.ops.spmv_pallas import PallasSpMV
-    from graphlily_tpu.ops.router_pallas import PlanarSpMV, RouterSpMV
-    from graphlily_tpu.ops.tropical_pallas import TropicalSpMV
-    from graphlily_tpu.io import rmat_csr, uniform_csr
-
-    small = rmat_csr(num_rows=20000, nnz=150000, seed=9)
-    m = SpMVModule(CFG)
-    m.set_semiring(ArithmeticSemiring)
-    m.set_mask_type(MaskType.NO_MASK)
-    m.load_and_format_matrix(small)
-    assert isinstance(m._pallas, PallasSpMV)          # under every cap
-
-    m2 = SpMVModule(CFG)
-    m2.set_semiring(TropicalSemiring)
-    m2.set_mask_type(MaskType.NO_MASK)
-    m2.load_and_format_matrix(small)
-    assert isinstance(m2._pallas, PallasSpMV)         # tropical + feasible
-
-    big_rows = uniform_csr(num_rows=701_000, num_cols=701_000,
-                           degree=1, seed=3)     # rows > 700K cap
-    m3 = SpMVModule(CFG)
-    m3.set_semiring(ArithmeticSemiring)
-    m3.set_mask_type(MaskType.NO_MASK)
-    m3.load_and_format_matrix(big_rows)
-    assert isinstance(m3._pallas, (PlanarSpMV, RouterSpMV))
-
-    m4 = SpMVModule(CFG)
-    m4.set_semiring(TropicalSemiring)
-    m4.set_mask_type(MaskType.NO_MASK)
-    m4.load_and_format_matrix(big_rows)
-    assert isinstance(m4._pallas, TropicalSpMV)       # beyond-chunked min
-
-
-def test_planar_fused_vmem_threshold():
-    """Pin the 17.5 MB fused-VMEM auto-select (VERDICT r4 weak #6): the
-    same layout must flip fused -> split when its accumulator footprint
-    crosses the cap (statics only — no kernel compile happens in init)."""
-    import dataclasses
-    from graphlily_tpu.io.planar_format import pack_planar
-    from graphlily_tpu.ops.router_pallas import PlanarSpMV
-    from graphlily_tpu.io import rmat_csr
-
-    csr = rmat_csr(num_rows=8000, nnz=60000, seed=11)
-    lay = pack_planar(csr.copy(), CFG, deal=CFG.planar_deal)
-    eng = PlanarSpMV(lay, ArithmeticSemiring, CFG)
-    assert eng.fused, "small layout must auto-select fused"
-    big = dataclasses.replace(lay, num_slots=5000)    # ~20/40 MB of banks
-    eng2 = PlanarSpMV(big, ArithmeticSemiring, CFG)
-    assert not eng2.fused, "past 17.5 MB the split path must be selected"

@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from graphlily_tpu import (ArithmeticSemiring, LogicalSemiring, TropicalSemiring,
+from graphlily_jax import (ArithmeticSemiring, LogicalSemiring, TropicalSemiring,
                            MaskType, FLOAT_INF)
-from graphlily_tpu.io import (uniform_csr, dense_csr, conflict_csr, csr2csc)
-from graphlily_tpu.ops import (coo_from_csr, coo_from_csc, spmv_coo, spmspv_coo,
+from graphlily_jax.io import (uniform_csr, dense_csr, conflict_csr, csr2csc)
+from graphlily_jax.ops import (coo_from_csr, coo_from_csc, spmv_coo, spmspv_coo,
                                sparse_from_entries, sparse_to_dense,
                                dense_to_sparse, ewise_add_scalar,
                                assign_vector_dense,

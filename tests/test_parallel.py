@@ -4,50 +4,90 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from graphlily_tpu import (ArithmeticSemiring, LogicalSemiring,
+from graphlily_jax import (ArithmeticSemiring, LogicalSemiring,
                            TropicalSemiring, MaskType, EngineConfig)
-from graphlily_tpu.io import uniform_csr, rmat_csr
-from graphlily_tpu.ops import coo_from_csr, spmv_coo
-from graphlily_tpu.io.formatter import util_round_csr_matrix_dim
-from graphlily_tpu.parallel import make_mesh, DistSpMV, pack_sharded
+from graphlily_jax.io import uniform_csr, rmat_csr
+from graphlily_jax.ops import coo_from_csr, spmv_coo
+from graphlily_jax.io.formatter import util_round_csr_matrix_dim
+from graphlily_jax.parallel import make_mesh, DistSpMV, pack_sharded
 
-CFG = EngineConfig(interpret=True)
+CFG = EngineConfig()
+SEMIRINGS = [ArithmeticSemiring, LogicalSemiring, TropicalSemiring]
 
 
-@pytest.mark.parametrize("semiring", [ArithmeticSemiring, TropicalSemiring],
-                         ids=lambda s: s.name)
-@pytest.mark.parametrize("shape", [(4, 2), (8, 1), (2, 2)])
+def _single_device(csr, lay, x, semiring, mask=None,
+                   mask_type=MaskType.NO_MASK):
+    padded = csr.copy()
+    util_round_csr_matrix_dim(padded, lay.num_rows, lay.num_cols)
+    return np.asarray(spmv_coo(coo_from_csr(padded), jnp.asarray(x),
+                               semiring, mask, mask_type))
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS, ids=lambda s: s.name)
+@pytest.mark.parametrize("shape", [(4, 2), (8, 1), (1, 8), (2, 2), (2, 4)])
 def test_dist_spmv_matches_single(semiring, shape, rng):
     R, C = shape
     mesh = make_mesh(R * C, rows=R, cols=C)
     csr = uniform_csr(3000, 3000, 5, seed=17)
-    lay = pack_sharded(csr, R, C, CFG, pad_val=semiring.zero)
+    lay = pack_sharded(csr, R, C, CFG)
     eng = DistSpMV(lay, semiring, mesh, CFG)
-    x = rng.random(lay.num_cols).astype(np.float32)
+    x = (rng.random(lay.num_cols) + 0.5).astype(np.float32)
+    x[rng.random(lay.num_cols) < 0.3] = semiring.zero
     y = np.asarray(eng(jnp.asarray(x)))
-    # single-device oracle on same padded dims
-    padded = csr.copy()
-    util_round_csr_matrix_dim(padded, lay.num_rows, lay.num_cols)
-    coo = coo_from_csr(padded)
-    want = np.asarray(spmv_coo(coo, jnp.asarray(x), semiring))
-    np.testing.assert_allclose(y, want, rtol=2e-3, atol=2e-3)
+    want = _single_device(csr, lay, x, semiring)
+    np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-5)
 
 
-def test_dist_spmv_masked(rng):
+@pytest.mark.parametrize("mask_type",
+                         [MaskType.WRITE_TO_ZERO, MaskType.WRITE_TO_ONE],
+                         ids=lambda m: m.name)
+def test_dist_spmv_masked(mask_type, rng):
     mesh = make_mesh(8, rows=4, cols=2)
     csr = uniform_csr(2000, 2000, 4, seed=19)
-    lay = pack_sharded(csr, 4, 2, CFG, pad_val=0.0)
-    eng = DistSpMV(lay, LogicalSemiring, mesh, CFG,
-                   mask_type=MaskType.WRITE_TO_ZERO)
+    lay = pack_sharded(csr, 4, 2, CFG)
+    eng = DistSpMV(lay, LogicalSemiring, mesh, CFG, mask_type=mask_type)
     x = (rng.random(lay.num_cols) < 0.3).astype(np.float32)
     mask = (rng.random(lay.num_rows) < 0.5).astype(np.float32)
     y = np.asarray(eng(jnp.asarray(x), jnp.asarray(mask)))
-    padded = csr.copy()
-    util_round_csr_matrix_dim(padded, lay.num_rows, lay.num_cols)
-    coo = coo_from_csr(padded)
-    want = np.asarray(spmv_coo(coo, jnp.asarray(x), LogicalSemiring,
-                               jnp.asarray(mask), MaskType.WRITE_TO_ZERO))
-    np.testing.assert_allclose(y, want, atol=1e-5)
+    want = _single_device(csr, lay, x, LogicalSemiring, jnp.asarray(mask),
+                          mask_type)
+    np.testing.assert_array_equal(y, want)
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS, ids=lambda s: s.name)
+def test_dist_spmv_lowers_triton_kernel_per_block(semiring):
+    """Lowered for CUDA, each block's product under shard_map is the
+    Triton kernel (the blocks are row-sorted); lowered for the CPU it is
+    XLA's product."""
+    mesh = make_mesh(4, rows=2, cols=2)
+    lay = pack_sharded(uniform_csr(3000, 3000, 5, seed=17), 2, 2, CFG)
+    eng = DistSpMV(lay, semiring, mesh, CFG)
+    traced = jax.jit(lambda e, v: e(v)).trace(eng, jnp.ones(lay.num_cols))
+    for platform, kernels in (("cuda", 1), ("cpu", 0)):
+        text = traced.lower(lowering_platforms=(platform,)).as_text()
+        assert text.count("__gpu$xla.gpu.triton") == kernels
+
+
+def test_pack_sharded_blocks_are_local_and_row_sorted():
+    """Every real entry lands in its (row-block, col-block) shard with
+    block-local indices in row-ascending order; padding points past the
+    block's last row."""
+    csr = rmat_csr(5000, 40000, seed=13)
+    lay = pack_sharded(csr, 2, 4, CFG)
+    assert lay.num_rows % 2048 == 0 and lay.num_cols % 4096 == 0
+    assert int(lay.block_nnz.sum()) == csr.nnz
+    rb, cb = lay.local_rows, lay.local_cols
+    got = []
+    for i in range(2):
+        for j in range(4):
+            k = int(lay.block_nnz[i, j])
+            r, c = lay.rows[i, j], lay.cols[i, j]
+            assert (np.diff(r[:k]) >= 0).all()
+            assert (r[k:] == rb).all()
+            got += zip((r[:k] + i * rb).tolist(), (c[:k] + j * cb).tolist())
+    want = zip(csr.row_ids().tolist(),
+               csr.adj_indices[:csr.nnz].astype(np.int64).tolist())
+    assert sorted(got) == sorted(want)
 
 
 def test_dist_pagerank_iteration(rng):
@@ -55,23 +95,22 @@ def test_dist_pagerank_iteration(rng):
     rows->cols reshard for the next step."""
     mesh = make_mesh(8, rows=4, cols=2)
     csr = rmat_csr(2000, 20000, seed=23)
-    from graphlily_tpu.io.formatter import util_normalize_csr_matrix_by_outdegree
+    from graphlily_jax.io.formatter import util_normalize_csr_matrix_by_outdegree
     work = csr.copy()
     util_round_csr_matrix_dim(work, 4096, 4096)
     util_normalize_csr_matrix_by_outdegree(work)
     work.adj_data = work.adj_data * 0.9
-    lay = pack_sharded(work, 4, 2, CFG, pad_val=0.0)
+    lay = pack_sharded(work, 4, 2, CFG)
     eng = DistSpMV(lay, ArithmeticSemiring, mesh, CFG)
     n = lay.num_rows
     offset = (1 - 0.9) / n
 
     @jax.jit
-    def step(rank):
-        y = eng(rank) + offset
-        return eng.reshard_for_input(y)
+    def step(e, rank):
+        return e.reshard_for_input(e(rank) + offset)
 
     rank = jnp.full(n, 1.0 / n, jnp.float32)
-    r1 = np.asarray(step(rank))
+    r1 = np.asarray(step(eng, rank))
     coo = coo_from_csr(work)
     want = np.asarray(spmv_coo(coo, rank, ArithmeticSemiring)) + offset
     np.testing.assert_allclose(r1, want, rtol=2e-3, atol=1e-8)
@@ -80,126 +119,53 @@ def test_dist_pagerank_iteration(rng):
 def test_dist_bfs_fused_loop_matches_single_chip():
     """Multi-iteration distributed BFS (masked SpMV + stamp + reshard inside
     ONE jit) must match the single-chip BFS app's pull results."""
-    from graphlily_tpu.parallel import dist_bfs_pull
-    from graphlily_tpu.apps import BFS
+    from graphlily_jax.parallel import dist_bfs_pull
+    from graphlily_jax.apps import BFS
     mesh = make_mesh(8, rows=4, cols=2)
     csr = uniform_csr(2048, 2048, 6, seed=23)
     csr.adj_data = np.ones_like(csr.adj_data)
     # iterating apps need square padding: lcm(4,2)*1024 on both dims
     util_round_csr_matrix_dim(csr, 4096, 4096)
-    lay = pack_sharded(csr, 4, 2, CFG, pad_val=0.0)
+    lay = pack_sharded(csr, 4, 2, CFG)
     eng = DistSpMV(lay, LogicalSemiring, mesh, CFG,
                    mask_type=MaskType.WRITE_TO_ZERO)
     got = dist_bfs_pull(eng, source=0, num_iterations=5)
     app = BFS(CFG)
     app.load_and_format_matrix(csr)
     want = app.compute_reference_results(0, 5)
-    np.testing.assert_allclose(got[:len(want)], want, atol=1e-5)
+    np.testing.assert_array_equal(got[:len(want)], want)
 
 
 def test_dist_sssp_fused_loop_matches_single_chip():
     """Distributed tropical pull loop (pmin over cols) vs the SSSP oracle."""
-    from graphlily_tpu.parallel import dist_sssp_pull
-    from graphlily_tpu.apps import SSSP
-    from graphlily_tpu.io.formatter import add_self_edges_for_sssp
+    from graphlily_jax.parallel import dist_sssp_pull
+    from graphlily_jax.apps import SSSP
+    from graphlily_jax.io.formatter import add_self_edges_for_sssp
     mesh = make_mesh(8, rows=2, cols=4)
     csr = uniform_csr(2048, 2048, 6, seed=29)
     csr.adj_data = np.ones_like(csr.adj_data)
     prepped = add_self_edges_for_sssp(csr)
     util_round_csr_matrix_dim(prepped, 4096, 4096)
-    lay = pack_sharded(prepped, 2, 4, CFG,
-                       pad_val=float(TropicalSemiring.zero))
+    lay = pack_sharded(prepped, 2, 4, CFG)
     eng = DistSpMV(lay, TropicalSemiring, mesh, CFG)
     got = dist_sssp_pull(eng, source=0, num_iterations=5)
     app = SSSP(CFG)
     app.load_and_format_matrix(csr)
     want = app.compute_reference_results(0, 5)
-    np.testing.assert_allclose(got[:len(want)], want, atol=1e-4)
+    np.testing.assert_allclose(got[:len(want)], want, rtol=1e-6)
 
 
-def test_dist_planar_matches_single(rng):
-    """Sharded PLANAR router (the scalable engine) vs the COO oracle on a
-    power-law graph over a (2,2) mesh."""
-    from graphlily_tpu.parallel import DistPlanarSpMV, pack_planar_sharded
-    mesh = make_mesh(4, rows=2, cols=2)
-    csr = rmat_csr(6000, 60000, seed=31)
-    lay = pack_planar_sharded(csr, 2, 2, CFG)
-    assert lay.shard_balance >= 1.0
-    eng = DistPlanarSpMV(lay, ArithmeticSemiring, mesh, CFG)
-    x = rng.random(lay.num_cols).astype(np.float32)
-    y = np.asarray(eng(jnp.asarray(x)))
-    padded = csr.copy()
-    util_round_csr_matrix_dim(padded, lay.num_rows, lay.num_cols)
-    coo = coo_from_csr(padded)
-    want = np.asarray(spmv_coo(coo, jnp.asarray(x), ArithmeticSemiring))
-    np.testing.assert_allclose(y, want, rtol=2e-3, atol=2e-3)
-
-
-def test_dist_planar_masked_logical(rng):
-    from graphlily_tpu.parallel import DistPlanarSpMV, pack_planar_sharded
-    mesh = make_mesh(8, rows=4, cols=2)
-    csr = rmat_csr(4096, 30000, seed=37)
-    lay = pack_planar_sharded(csr, 4, 2, CFG)
-    eng = DistPlanarSpMV(lay, LogicalSemiring, mesh, CFG,
-                         mask_type=MaskType.WRITE_TO_ZERO)
-    x = (rng.random(lay.num_cols) < 0.3).astype(np.float32)
-    mask = (rng.random(lay.num_rows) < 0.5).astype(np.float32)
-    y = np.asarray(eng(jnp.asarray(x), jnp.asarray(mask)))
-    padded = csr.copy()
-    util_round_csr_matrix_dim(padded, lay.num_rows, lay.num_cols)
-    coo = coo_from_csr(padded)
-    want = np.asarray(spmv_coo(coo, jnp.asarray(x), LogicalSemiring,
-                               jnp.asarray(mask), MaskType.WRITE_TO_ZERO))
-    np.testing.assert_allclose(y, want, atol=1e-5)
-
-
-def test_dist_planar_pagerank_step(rng):
-    """Distributed planar power iteration inside one jit with the
-    rows->cols reshard (the iterating-app dataflow on the scalable
-    engine)."""
-    from graphlily_tpu.parallel import DistPlanarSpMV, pack_planar_sharded
-    from graphlily_tpu.io.formatter import (
-        util_normalize_csr_matrix_by_outdegree)
-    mesh = make_mesh(4, rows=2, cols=2)
-    csr = rmat_csr(4000, 40000, seed=41)
-    work = csr.copy()
-    util_round_csr_matrix_dim(work, 4096, 4096)
-    util_normalize_csr_matrix_by_outdegree(work)
-    work.adj_data = work.adj_data * 0.9
-    lay = pack_planar_sharded(work, 2, 2, CFG)
-    eng = DistPlanarSpMV(lay, ArithmeticSemiring, mesh, CFG)
-    n = lay.num_rows
-    offset = (1 - 0.9) / n
-
-    @jax.jit
-    def step(rank):
-        y = eng(rank) + offset
-        return eng.reshard_for_input(y)
-
-    rank = jnp.full(n, 1.0 / n, jnp.float32)
-    r1 = np.asarray(step(rank))
-    coo = coo_from_csr(work)
-    want = np.asarray(spmv_coo(coo, rank, ArithmeticSemiring)) + offset
-    np.testing.assert_allclose(r1, want, rtol=2e-3, atol=1e-8)
-
-
-@pytest.mark.slow
 def test_dist_tropical_engine_matches_oracle(rng):
-    """Distributed SCALABLE tropical engine (pack_tropical_sharded +
-    DistTropicalSpMV: per-shard 3-pass bit-encoded min, pmin over 'cols')
-    vs the f64 host oracle — the engine multi-chip SSSP rides past the
-    chunked layout's feasible scale (VERDICT r3 #7 lifted the ADDMIN
-    exclusion)."""
-    from graphlily_tpu.parallel import DistTropicalSpMV, pack_tropical_sharded
+    """Distributed tropical SpMV with random weights (pmin over 'cols') vs
+    the f64 host oracle."""
+    from graphlily_jax.semiring import FLOAT_INF
     mesh = make_mesh(8, rows=4, cols=2)
     csr = rmat_csr(5000, 60000, seed=23)
     csr.adj_data = (rng.random(len(csr.adj_data)) * 3).astype(np.float32)
-    lay = pack_tropical_sharded(csr, 4, 2, CFG)
-    eng = DistTropicalSpMV(lay, TropicalSemiring, mesh, CFG)
+    lay = pack_sharded(csr, 4, 2, CFG)
+    eng = DistSpMV(lay, TropicalSemiring, mesh, CFG)
     x = (rng.random(lay.num_cols) * 5).astype(np.float32)
     y = np.asarray(eng(jnp.asarray(x)))
-    # f64 oracle on the padded dims
-    from graphlily_tpu.semiring import FLOAT_INF
     padded = csr.copy()
     util_round_csr_matrix_dim(padded, lay.num_rows, lay.num_cols)
     rr = padded.row_ids().astype(np.int64)
@@ -210,104 +176,56 @@ def test_dist_tropical_engine_matches_oracle(rng):
     np.testing.assert_allclose(y, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.slow
 def test_dist_bfs_pull_push_matches_single_chip():
     """Distributed adaptive pull_push (do-while push + density switch in one
     jitted program over the mesh) must reproduce the single-chip fused
     app's distances exactly."""
-    from graphlily_tpu.apps import BFS
-    from graphlily_tpu.parallel import dist_bfs_pull_push
+    from graphlily_jax.apps import BFS
+    from graphlily_jax.parallel import dist_bfs_pull_push
     mesh = make_mesh(8, rows=4, cols=2)
     csr = rmat_csr(3000, 24000, seed=31)
     csr.adj_data = np.ones_like(csr.adj_data)
     work = csr.copy()
     util_round_csr_matrix_dim(work, 4096, 4096)
-    lay = pack_sharded(work, 4, 2, CFG, pad_val=0.0)
+    lay = pack_sharded(work, 4, 2, CFG)
     eng = DistSpMV(lay, LogicalSemiring, mesh, CFG,
                    mask_type=MaskType.WRITE_TO_ZERO)
     got = dist_bfs_pull_push(eng, source=2, num_iterations=5, threshold=0.05)
-    app = BFS(EngineConfig(interpret=True, sort_rows_by_degree=False))
+    app = BFS(EngineConfig(sort_rows_by_degree=False))
     app.load_and_format_matrix(work)
     want = app.pull_push(2, 5, threshold=0.05)
-    np.testing.assert_allclose(got[:len(want)], np.asarray(want), atol=1e-6)
+    np.testing.assert_array_equal(got[:len(want)], np.asarray(want))
 
 
 def test_powerlaw_shard_balance_reported():
-    """pack_planar_sharded on a hub-skewed RMAT must report the pad-to-max
-    stretch honestly (max/avg packed chunks) — the number the dryrun prints
-    for the judge. Bound is loose: this documents the imbalance, the fix is
-    future work (VERDICT r3 weak #6)."""
-    from graphlily_tpu.parallel import pack_planar_sharded
+    """pack_sharded on a hub-skewed RMAT must report the pad-to-max
+    stretch honestly (max/avg block nnz): RMAT hubs concentrate in the
+    top-left block."""
     skew = rmat_csr(16 * 1024, 160 * 1024, seed=7, a=0.7, b=0.15, c=0.1)
-    lay = pack_planar_sharded(skew, 2, 2, CFG)
-    assert 1.0 <= lay.shard_balance < 8.0
+    lay = pack_sharded(skew, 2, 2, CFG)
+    counts = lay.block_nnz
+    assert lay.shard_balance == pytest.approx(counts.max() / counts.mean())
+    assert counts[0, 0] == counts.max()
+    assert lay.shard_balance > 1.0
 
 
-def test_dist_pytree_fields_contract(rng):
-    """FIELDS-threading contract (VERDICT r4 weak #7): every pytree slot a
-    single-chip engine populates must also be populated (or explicitly
-    excluded) by the dist shard builders — the r4 `c_beg` FIELDS addition
-    silently broke DistPlanarSpMV for five commits because the padded
-    arrays dict fell out of sync with the engine's positional pytree.
-    Structural and fast (no engine execution)."""
-    from graphlily_tpu.io import rmat_csr
-    from graphlily_tpu.io.planar_format import pack_planar
-    from graphlily_tpu.io.tropical_format import pack_tropical
-    from graphlily_tpu.ops.router_pallas import PlanarSpMV, PlanarArrays
-    from graphlily_tpu.ops.tropical_pallas import TropicalSpMV, TropicalArrays
-    from graphlily_tpu.parallel import (pack_planar_sharded,
-                                        pack_tropical_sharded)
-
-    csr = rmat_csr(num_rows=4000, nnz=24000, seed=3)
-    # dist packs intentionally skip these single-chip-only slots
-    dist_exempt = {"xsort2", "triples2", "c_beg"}
-
-    lay_p = pack_planar(csr.copy(), CFG, deal=CFG.planar_deal)
-    single_p = PlanarSpMV(lay_p, ArithmeticSemiring, CFG).arrays
-    sh_p = pack_planar_sharded(csr.copy(), 2, 2, CFG)
-    for f in PlanarArrays.FIELDS:
-        if getattr(single_p, f) is None or f in dist_exempt:
-            continue
-        assert sh_p.arrays.get(f) is not None, (
-            f"PlanarArrays.{f} is populated single-chip but missing from "
-            "pack_planar_sharded — thread it (or add to dist_exempt with "
-            "a fallback in the engine)")
-
-    lay_t = pack_tropical(csr.copy(), CFG, region_rows=2048, kb=4)
-    single_t = TropicalSpMV(lay_t, TropicalSemiring, CFG).arrays
-    sh_t = pack_tropical_sharded(csr.copy(), 2, 2, CFG, kb=4)
-    for f in TropicalArrays.FIELDS:
-        if getattr(single_t, f) is None or f in dist_exempt:
-            continue
-        assert sh_t.arrays.get(f) is not None, (
-            f"TropicalArrays.{f} is populated single-chip but missing from "
-            "pack_tropical_sharded — thread it (or add to dist_exempt with "
-            "a fallback in the engine)")
-
-
-@pytest.mark.slow
 def test_dist_sssp_pull_push_skewed_matches_single_chip():
-    """Fused distributed adaptive SSSP (VERDICT r4 #9): do-while push +
-    density switch in ONE jitted program over an 8-device mesh on a
-    hub-skewed RMAT, exact against the single-chip fused app; the shard
-    balance of the same graph's planar pack is asserted bounded."""
-    from graphlily_tpu.apps import SSSP
-    from graphlily_tpu.io.formatter import add_self_edges_for_sssp
-    from graphlily_tpu.parallel import (dist_sssp_pull_push,
-                                        pack_planar_sharded)
+    """Fused distributed adaptive SSSP: do-while push + density switch in
+    ONE jitted program over an 8-device mesh on a hub-skewed RMAT, exact
+    against the single-chip fused app."""
+    from graphlily_jax.apps import SSSP
+    from graphlily_jax.io.formatter import add_self_edges_for_sssp
+    from graphlily_jax.parallel import dist_sssp_pull_push
     mesh = make_mesh(8, rows=4, cols=2)
     csr = rmat_csr(3000, 30000, seed=41, a=0.7, b=0.15, c=0.1)  # skewed
     csr.adj_data = np.ones_like(csr.adj_data)
     work = add_self_edges_for_sssp(csr.copy())
     util_round_csr_matrix_dim(work, 4096, 4096)
-    lay = pack_sharded(work, 4, 2, CFG, pad_val=TropicalSemiring.zero)
+    lay = pack_sharded(work, 4, 2, CFG)
     eng = DistSpMV(lay, TropicalSemiring, mesh, CFG)
     got = dist_sssp_pull_push(eng, source=2, num_iterations=5,
                               threshold=0.05)
-    app = SSSP(EngineConfig(interpret=True, sort_rows_by_degree=False))
+    app = SSSP(EngineConfig(sort_rows_by_degree=False))
     app.load_and_format_matrix(csr.copy())
     want = app.pull_push(2, 5, threshold=0.05)
-    np.testing.assert_allclose(got[:len(want)], np.asarray(want), atol=1e-5)
-    # the same skewed structure's planar shard balance stays bounded
-    bal = pack_planar_sharded(work, 2, 2, CFG).shard_balance
-    assert 1.0 <= bal < 8.0
+    np.testing.assert_array_equal(got[:len(want)], np.asarray(want))

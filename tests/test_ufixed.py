@@ -10,13 +10,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from graphlily_tpu.semiring import (ufixed_quantize, np_ufixed_quantize,
+from graphlily_jax.semiring import (ufixed_quantize, np_ufixed_quantize,
                                     UFIXED_MAX, UFIXED_FRAC_BITS,
                                     ArithmeticSemiring)
-from graphlily_tpu.config import EngineConfig
-from graphlily_tpu.module.spmv_module import SpMVModule
-from graphlily_tpu.module.apply_modules import eWiseAddModule
-from graphlily_tpu.io.matrix import CSRMatrix
+from graphlily_jax.config import EngineConfig
+from graphlily_jax.module.spmv_module import SpMVModule
+from graphlily_jax.module.apply_modules import eWiseAddModule
+from graphlily_jax.io.matrix import CSRMatrix
 
 
 def test_grid_constants():
@@ -69,7 +69,7 @@ def test_spmv_module_saturates():
     # row 1 stays on-grid and is exact
     n = 8
     m = _csr([0, 0, 1], [0, 1, 2], [200.0, 200.0, 2.5], n)
-    cfg = EngineConfig(engine="xla", simulate_ufixed=True)
+    cfg = EngineConfig(simulate_ufixed=True)
     mod = SpMVModule(cfg)
     mod.set_semiring(ArithmeticSemiring)
     mod.load_and_format_matrix(m)
@@ -79,7 +79,7 @@ def test_spmv_module_saturates():
     assert y[0] == np.float32(UFIXED_MAX)
     assert y[1] == np.float32(2.5)
     # same product without the mode overflows past the val_t ceiling
-    mod2 = SpMVModule(EngineConfig(engine="xla"))
+    mod2 = SpMVModule(EngineConfig())
     mod2.set_semiring(ArithmeticSemiring)
     mod2.load_and_format_matrix(m)
     mod2.send_vector_host_to_device(np.ones(n, np.float32))
